@@ -6,15 +6,13 @@ The reference Newton-solves through KLU at every size
 continuation solve dense vs sparse over growing chains and reports
 per-solve wall time + the measured crossover.
 
-Backends (the round-2 verdict called out that a CPU-only crossover does
-not validate the TPU dispatch threshold — the leveled sparse sweeps could
-serialize very differently on the chip):
+A crossover measured on one backend does not carry to another — the
+leveled sparse sweeps serialize differently on a GPU than on the CPU:
 
-    python benchmarks/sparse_crossover.py --backend cpu   # f64, writes sparse_crossover.json
-    python benchmarks/sparse_crossover.py --backend tpu   # mixed precision (f32 evals,
-        # f64 solves — the TPU design point), writes sparse_crossover_tpu.json
+    python benchmarks/sparse_crossover.py --backend cpu
+    python benchmarks/sparse_crossover.py --backend gpu
 
-Every row carries a ``backend`` field.
+Every row carries a ``backend`` field; the summary is printed as JSON.
 """
 
 import argparse
@@ -32,11 +30,7 @@ def time_dc(n_cells, sparse, backend):
     from chain import build
     from cedarsim_tpu import solve_dc, SimSpec
     import jax
-    kw = {}
-    if backend == "tpu":
-        import jax.numpy as jnp
-        kw["eval_dtype"] = jnp.float32
-    c = build(n_cells, sparse=sparse, **kw)
+    c = build(n_cells, sparse=sparse)
     ctx = SimSpec.make(gmin=1e-15)
     t0 = time.perf_counter()
     r = solve_dc(c, ctx=ctx, mode="tranop", artifact_cache=False)
@@ -49,21 +43,19 @@ def time_dc(n_cells, sparse, backend):
         r = solve_dc(c, ctx=ctx, mode="tranop", artifact_cache=False)
         jax.block_until_ready(r.x)
     warm = (time.perf_counter() - t0) / reps
-    return dict(n_x=c.n_x, compile_s=round(compile_s, 2),
-                solve_s=round(warm, 4))
+    return dict(n_x=c.n_x, compile_s=compile_s, solve_s=warm)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", default="2,6,12,24,48,90")
-    ap.add_argument("--backend", choices=["cpu", "tpu"], default="cpu")
+    ap.add_argument("--backend", choices=["cpu", "gpu"], default="cpu")
     args = ap.parse_args()
     import jax
     if args.backend == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    else:
-        assert jax.default_backend() == "tpu", \
-            f"asked for tpu, got {jax.default_backend()}"
+    elif jax.default_backend() != "gpu":
+        sys.exit(f"asked for gpu, got {jax.default_backend()}")
     sizes = [int(s) for s in args.sizes.split(",")]
     rows = []
     for n in sizes:
@@ -78,21 +70,15 @@ def main():
             except Exception as e:  # dense may OOM/blow up at large n
                 row["sparse" if sp else "dense"] = f"{type(e).__name__}: {e}"[:160]
         if "dense_solve_s" in row and "sparse_solve_s" in row:
-            row["speedup"] = round(row["dense_solve_s"]
-                                   / row["sparse_solve_s"], 2)
+            row["speedup"] = row["dense_solve_s"] / row["sparse_solve_s"]
         rows.append(row)
         print(row, flush=True)
     cross = next((r["n_x"] for r in rows if r.get("speedup", 0) > 1.0), None)
-    mode = ("DC continuation solve, TPU mixed precision (f32 evals/f64 "
-            "solves), warm (3-run mean)" if args.backend == "tpu"
-            else "DC continuation solve, CPU f64, warm (3-run mean)")
-    out = {"rows": rows, "crossover_n_x": cross, "backend": args.backend,
-           "note": mode}
-    name = ("sparse_crossover.json" if args.backend == "cpu"
-            else "sparse_crossover_tpu.json")
-    with open(os.path.join(D, name), "w") as f:
-        json.dump(out, f, indent=1)
-    print("crossover at n_x ≈", cross)
+    dev = jax.devices()[0]
+    out = {"rows": rows, "crossover_n_x": cross, "platform": dev.platform,
+           "device_kind": dev.device_kind,
+           "note": "DC continuation solve, f64, warm (3-run mean)"}
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,12 @@
-"""cedarsim_tpu — a TPU-native (JAX/XLA/Pallas) SPICE-class analog circuit
-simulation framework.
+"""cedarsim_tpu — a SPICE-class analog circuit simulation framework on
+JAX/XLA, running on a GPU or the CPU.
 
 Capabilities modeled on NyanCAD/CedarSim.jl (see SURVEY.md): SPICE/Spectre and
 Verilog-A netlists compile into pure JAX residual/Jacobian functions with
 static structure derived from the circuit graph; DC operating point, transient
 (adaptive implicit stepping inside ``lax.while_loop``), AC, and noise analyses
 run entirely on-device; parameter sweeps and Monte-Carlo are ``vmap`` batches
-sharded across TPU meshes.
+sharded across device meshes.
 
 Unlike the reference (Julia metaprogramming + DAECompiler abstract
 interpretation, /root/reference/src/CedarSim.jl), this framework lowers the

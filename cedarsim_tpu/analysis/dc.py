@@ -4,7 +4,7 @@ continuation, plus randomized-restart bootstrap.
 Reference behavior: CedarDCOp/CedarTranOp initialization
 (/root/reference/src/dcop.jl:24-155) — a NonlinearSolve RobustMultiNewton with
 up to 10 restarts from 1e-7·randn perturbations (``bootstrapped_nlsolve``,
-dcop.jl:53-94).  The TPU build adds the classic SPICE continuation ladders
+dcop.jl:53-94).  This build adds the classic SPICE continuation ladders
 (gmin / source stepping) and keeps everything inside ``lax`` control flow so a
 whole PVT/Monte-Carlo sweep of operating points runs as one ``vmap``-batched
 XLA program — the parallel initialization the reference's TODO asks for
@@ -13,9 +13,10 @@ XLA program — the parallel initialization the reference's TODO asks for
 Compile-latency design: the entire strategy — plain attempt, gmin ladder,
 source-stepping ladder, randomized restarts — is ONE ``lax.scan`` over a
 static schedule of (gshunt, sourcefac, reset-kind, is-final) rows, with a
-single Newton-loop instantiation in the scan body.  XLA:TPU compile time
-scales with the number of distinct subgraphs, and the naive version (separate
-ladders + conds) compiled 10-15× slower for identical semantics.
+single Newton-loop instantiation in the scan body.  XLA compile time scales
+with the number of distinct subgraphs, and the naive version (separate
+ladders + conds) instantiated the Newton loop once per rung for identical
+semantics.
 """
 
 from __future__ import annotations

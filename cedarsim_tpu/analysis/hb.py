@@ -17,10 +17,10 @@ sin(pi (j−l)/N)).  This time-domain collocation is algebraically identical
 to classical harmonic balance on a square grid, but keeps every quantity
 real and lets the device models evaluate exactly as they do in transient.
 
-TPU-native shape: all N sample evaluations run as ONE vmap (the per-class
+Batched shape: all N sample evaluations run as ONE vmap (the per-class
 batched stamps batch over samples × instances), and the Newton system is a
-dense (N·n)² matrix built from two einsums — MXU work, no sequential time
-stepping at all.  Convergence is the classic HB trade: a handful of Newton
+dense (N·n)² matrix built from two einsums — dense matmul work, no
+sequential time stepping at all.  Convergence is the classic HB trade: a handful of Newton
 solves instead of integrating thousands of periods to steady state.
 
 Two entry points:

@@ -8,7 +8,7 @@ adaptive integrator (`jax.jacfwd` over ``tran_core`` — the same
 jvp-through-the-loop machinery as analysis/sensitivity.py), so the
 shooting Jacobian is exact for the realized step sequence.
 
-TPU-native shape: the n tangent integrations inside jacfwd batch like a
+Batched shape: the n tangent integrations inside jacfwd batch like a
 vmap — one XLA program computes Φ and M together.  Typical use: switched
 / RF-driven circuits where the transient to steady state spans thousands
 of periods but shooting converges in a handful of Newton iterations.

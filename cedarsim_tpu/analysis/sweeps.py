@@ -5,7 +5,7 @@ test/sweep.jl): ``Sweep`` is one parameter × value list; ``ProductSweep`` is
 the cartesian product; ``TandemSweep`` zips; ``SerialSweep`` concatenates
 (missing params fall back to defaults, the reference's ``nothing`` fill).
 
-Execution is where the TPU build departs: instead of the reference's serial
+Execution is where this build departs: instead of the reference's serial
 ``remake`` broadcast loop (sweeps.jl:471-502 — compiled once, solved one at a
 time), the sweep points are stacked into a batched parameter pytree and the
 whole batch solves as ONE ``vmap``-ed XLA program, optionally sharded over a

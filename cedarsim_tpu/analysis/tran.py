@@ -88,10 +88,10 @@ class TranOptions:
     #: step-size controller: "i" (default — classic integral-only
     #: err^(-1/3) control) or "pi" (digital PI, previous-error damped,
     #: Hairer-Wanner PI.4.2).  PI cuts rejections ~45% and smooths h, but
-    #: its conservative growth costs ~15-25% more accepted steps — a net
-    #: loss under batched lockstep execution (measured: TPU batch-16 BSIM4
-    #: headline 1.68 → 1.23 tr/s), a net win for rejection-dominated or
-    #: oscillatory single runs.  Either way the controller is AD-detached.
+    #: its conservative growth costs more accepted steps — a net loss
+    #: under batched lockstep execution, where every lane runs the union
+    #: of steps, and a net win for rejection-dominated or oscillatory
+    #: single runs.  Either way the controller is AD-detached.
     controller: str = "i"
     #: LTE acceptance deadband: accept steps with err ≤ accept_slack (err is
     #: already trtol-scaled); 1.0 = strict classic rule.  Marginal accepts
@@ -136,17 +136,17 @@ class TranOptions:
     #: the chord_fallback rescue becomes eligible for a lane.  Under vmap
     #: the rescue's while_loop body executes for the WHOLE batch whenever
     #: ANY lane enters it, and each iteration is a full jacfwd model walk +
-    #: factorization — engaging on every chord miss cost 5× batched
-    #: throughput on the DFF bench (17.1 → 3.4 tr/s, 2026-08-19) while the
-    #: pathology it exists for (the round-2 h-collapse stall at a
-    #: breakpoint) only appears as a failure *streak*.  Ordinary one-off
+    #: factorization — engaging on every chord miss cut batched throughput
+    #: on the DFF bench several-fold, while the pathology it exists for
+    #: (the round-2 h-collapse stall at a breakpoint) only appears as a
+    #: failure *streak*.  Ordinary one-off
     #: chord misses reject-and-shrink as before; a lane that has already
     #: failed Newton ``rescue_after`` times at the same t (h down 4^k×)
     #: gets the in-program full-Newton rescue on its next attempt.
     #: 0 = engage immediately on any chord certify failure.  Default 5:
     #: at rescue_after=2 the DFF bench still engaged ~6k batch-iterations
     #: on 2-streaks that h-shrink resolves anyway (identical rejection
-    #: counts, 1.7x wall); a genuine stall spiral runs hundreds of
+    #: counts, more wall time); a genuine stall spiral runs hundreds of
     #: attempts, so waiting five failures (h down 4^5 = 1024x) costs a
     #: stalled lane almost nothing and keeps the common path clean.
     rescue_after: int = 5
@@ -177,13 +177,12 @@ class TranOptions:
     #: differences (Q(x)-Qn)/h — exactly charge-conserving, the f64 default;
     #: "cap" uses the companion-model capacitance form S(x) + C(x)·ẋ(x)
     #: with ẋ from the method's derivative recurrence on the f64 states.
-    #: "auto" picks cap for mixed-precision (f32) model evals: TPU f32
-    #: transcendentals carry ~1e-6 relative error (measured: pow 4e-6 vs
-    #: 7e-8 on CPU), and dividing that charge noise by h floors the
-    #: charge-form residual at ~1e-5 A for small steps — Newton then never
-    #: converges and h death-spirals.  The cap form never divides an
-    #: f32-evaluated quantity by h (the x-difference in ẋ is exact f64), so
-    #: eval noise stays relative.
+    #: "auto" picks cap for mixed-precision (f32) model evals: f32
+    #: transcendentals carry ~1e-6 relative error, and dividing that charge
+    #: noise by h floors the charge-form residual at ~1e-5 A for small
+    #: steps — Newton then never converges and h death-spirals.  The cap
+    #: form never divides an f32-evaluated quantity by h (the x-difference
+    #: in ẋ is exact f64), so eval noise stays relative.
     formulation: str = "auto"
     #: history-ring length for exact-delay (VA absdelay, delay_mode=
     #: "history") lookups: the last delay_history accepted points' delayed-
@@ -198,42 +197,11 @@ class TranOptions:
     #: The checkpoint/final state always carries the FULL x, so resume
     #: and chained windows are unaffected.
     store_vars: tuple = None
-    #: dense linear-solver backend: "auto" (default — the public tran()
-    #: entry and the bench/mesh harnesses resolve it via
-    #: :func:`auto_tpu_impl`: "mixed" on the TPU backend's dense path,
-    #: "jax" everywhere else; AD-carrying direct tran_core callers
-    #: (sensitivity/pss) resolve it conservatively to "jax"), "jax"
-    #: (exact-f64 pure-JAX LU everywhere) or "mixed" (route the dense
-    #: factor/solve through the custom_vmap pair
-    #: ops/linalg.chord_factor/chord_backsolve: unbatched solves stay
-    #: exact f64, while vmapped sweeps on TPU drop to the f32 Pallas
-    #: sublane GESP kernel with f64 iterative refinement — measured 7.9x
-    #: per-solve at the DFF shape, benchmarks/pallas_lu_bench.json; off
-    #: the Pallas envelope it falls back to the exact path at trace time).
-    #: custom_vmap has no AD rules: sensitivity/pss jvp through the
-    #: integrator requires "jax".
-    dense_lu: str = "auto"
-    #: chord-iteration implementation: "auto" (default — resolved by
-    #: :func:`auto_tpu_impl` on the public tran() entry and in the
-    #: bench/mesh harnesses: "fused" on TPU when the whole kernel envelope
-    #: below holds, "xla" otherwise; direct tran_core callers resolve it
-    #: conservatively to "xla"), "xla" (the while_loop over residual walks
-    #: below) or "fused" (ops/fused_chord.py: the ENTIRE chord loop —
-    #: nonlinear model eval, assembly, backsolve, damping, convergence —
-    #: compiled into ONE Pallas kernel; a step attempt costs one dispatch
-    #: instead of O(iterations × model-walk kernels).  The single-stream
-    #: latency lever of benchmarks/single_stream.md — measured 2.04x
-    #: single-stream on chip).
-    #: Envelope: dense path, cap-form corrector, jac_reuse >= 1, no noise/
-    #: delay channels, concrete params (the kernel bakes them), public
-    #: tran() entry (the plan is built outside the jit boundary).  In-kernel
-    #: math is f32: use the mixed-precision tolerance set.
-    newton_impl: str = "auto"
     #: output-buffer chunk size: the adaptive while_loop carries only a
     #: (chunk_size, n) buffer; an outer lax.scan stacks chunks in place.
     #: Keeps buffer writes O(chunk) per step — with the full buffer in the
     #: while carry, batched (vmapped) runs copy the whole buffer every
-    #: iteration (measured 14x slowdown at batch 16).
+    #: iteration.
     chunk_size: int = 64
 
 
@@ -258,6 +226,9 @@ class TranSolution:
     #: stored observable name -> column of ``xs``; None means ``xs`` holds
     #: the full state and every observable is reconstructable
     store_map: dict = None
+    #: the options this run used (resolved defaults included), so the same
+    #: transient can be repeated on the same compiled program
+    opts: TranOptions = None
 
     @property
     def t(self):
@@ -391,82 +362,6 @@ def window_schedules(bps_all, edges):
                      for w in win])
 
 
-def auto_tpu_impl(compiled: CompiledCircuit, ctx: SimSpec,
-                  opts: TranOptions, params=None, batched=False,
-                  dyn_leaves=None, batch_size=None):
-    """Resolve ``newton_impl="auto"``/``dense_lu="auto"`` to the
-    measured-best TPU configuration when the kernel envelope holds, so the
-    default path — not a flag — runs the Pallas fast paths (VERDICT r4 #4).
-
-    Call OUTSIDE any jit/AD transform with a concrete ``ctx`` (the public
-    :func:`tran` does; the bench/PVT/mesh harnesses do before vmapping).
-    ``batched=True`` additionally requires the batched fused kernel's size
-    envelope (``FusedChordPlan.MAX_N_BATCHED``).  Resolution:
-
-    - ``dense_lu``: "mixed" on the TPU backend's dense path (the Pallas
-      sublane LU + f64 refinement; its custom_vmap falls back to the exact
-      path off-envelope at trace time, so this is safe), else "jax".
-    - ``newton_impl``: "fused" on TPU when the fused-chord plan builds and
-      the envelope holds (dense, cap-form, jac_reuse == 1 — the measured
-      configuration, no noise/delay channels); else "xla".  On success the
-      plan is stashed on ``compiled._fused_plan_active`` for tran_core.
-
-    ``dyn_leaves``: for BATCHED callers — the (group_key, param_name)
-    leaves (or dotted param names, resolved via ``compiled.param_loc``)
-    that will vary per lane.  Every leaf must pass the plan's
-    ``dyn_leaf_safe`` probe (nonlinear-group runtime inputs, or pure
-    source-offset linear params); a leaf that enters the baked
-    G_lin/C_lin matrices — an R/C/L value, a controlled-source gain —
-    falls back to "xla", because the kernel would silently use the baked
-    value for every lane.  ``batched=True`` with ``dyn_leaves=None``
-    (lane-varying params of unknown shape) never fuses.  ``batch_size``
-    (when known) additionally bounds auto-fusing at
-    ``FusedChordPlan.AUTO_MAX_B`` — the kernel's scoped-VMEM stack scales
-    with the lane count (nb=512 OOMs it, nb=64 measured golden-exact).
-
-    Direct tran_core callers that may sit under AD (sensitivity, PSS)
-    skip this and get the conservative "xla"/"jax" resolution instead —
-    custom_vmap/Pallas have no AD rules."""
-    import dataclasses as _dc
-    ni, dl = opts.newton_impl, opts.dense_lu
-    if ni != "auto" and dl != "auto":
-        return opts
-    from cedarsim_tpu.core.compile import use_sparse_solver
-    on_tpu = jax.default_backend() == "tpu"
-    sparse = use_sparse_solver(compiled)
-    if dl == "auto":
-        dl = "mixed" if (on_tpu and not sparse) else "jax"
-    if ni == "auto":
-        ni = "xla"
-        cap_form = (opts.formulation == "cap"
-                    or (opts.formulation == "auto"
-                        and compiled.eval_dtype != compiled.dtype))
-        if (on_tpu and not sparse and cap_form and opts.jac_reuse == 1
-                and opts.noise_seed is None
-                and getattr(compiled, "n_dly", 0) == 0
-                and not (batched and dyn_leaves is None)):
-            from cedarsim_tpu.ops.fused_chord import get_fused_plan
-            try:
-                plan = get_fused_plan(compiled, ctx.with_mode(Modes.TRAN),
-                                      params)
-                ok = not batched or (
-                    compiled.n_x <= plan.MAX_N_BATCHED
-                    and (batch_size is None
-                         or batch_size <= plan.AUTO_MAX_B))
-                for leaf in (dyn_leaves or () if batched else ()):
-                    if isinstance(leaf, str):
-                        k, _, pn = compiled.param_loc(leaf)
-                    else:
-                        k, pn = leaf
-                    ok = ok and plan.dyn_leaf_safe(k, pn)
-                if ok:
-                    compiled._fused_plan_active = plan
-                    ni = "fused"
-            except Exception:
-                pass        # outside the kernel envelope — stay on xla
-    return _dc.replace(opts, newton_impl=ni, dense_lu=dl)
-
-
 def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
               t0, tstop, bps, h0, opts: TranOptions, lte_mask=None,
               init_state=None):
@@ -483,18 +378,6 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     with its step size and predictor history intact (solver-state
     checkpoint/resume, SURVEY.md §5).  ``t0``/``x0``/``xdot0`` must equal
     the checkpoint's; ``bps`` must contain only breakpoints > t0."""
-    if opts.newton_impl == "auto" or opts.dense_lu == "auto":
-        # conservative in-core resolution: this frame may sit under jit/AD
-        # (sensitivity/PSS jvp straight through the integrator, and
-        # custom_vmap/Pallas carry no AD rules).  Harness entry points that
-        # can guarantee no outer AD resolve aggressively via auto_tpu_impl
-        # before tracing.
-        import dataclasses as _dc
-        opts = _dc.replace(
-            opts,
-            newton_impl=("xla" if opts.newton_impl == "auto"
-                         else opts.newton_impl),
-            dense_lu="jax" if opts.dense_lu == "auto" else opts.dense_lu)
     n = compiled.n_x
     dtype = compiled.dtype
     span = tstop - t0
@@ -530,8 +413,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         lin_solve = sops.solve
         c_apply = sops.matvec
     else:
-        lin_solve = (linalg.chord_solve_once if opts.dense_lu == "mixed"
-                     else linalg.solve)
+        lin_solve = linalg.solve
         c_apply = lambda C, v: C @ v
     cap_form = (opts.formulation == "cap"
                 or (opts.formulation == "auto"
@@ -573,38 +455,6 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     ring_slots = (jnp.asarray(getattr(compiled, "ring_slots"))
                   if n_ring and n_lat else None)
     KD = opts.delay_history
-
-    fused_plan = None
-    if opts.newton_impl == "fused":
-        # the fused chord kernel (ops/fused_chord.py) — validate its
-        # envelope here so a bad config fails at trace time with a clear
-        # message, not inside Mosaic
-        fused_plan = getattr(compiled, "_fused_plan_active", None)
-        if fused_plan is None:
-            # direct tran_core callers with a concrete ctx can still build
-            # one; under a jit trace (traced ctx/params) this raises with
-            # the pointer to the public tran() path
-            from cedarsim_tpu.ops.fused_chord import get_fused_plan
-            try:
-                fused_plan = get_fused_plan(compiled, ctx, None)
-            except Exception as e:
-                raise ValueError(
-                    "newton_impl='fused' needs its plan built outside the "
-                    "jit boundary — use the public tran() entry "
-                    f"(plan build failed here: {e})")
-        if use_sparse:
-            raise ValueError("newton_impl='fused' is dense-path only")
-        if not cap_form:
-            raise ValueError("newton_impl='fused' requires the cap-form "
-                             "corrector (formulation='cap' or mixed-"
-                             "precision eval_dtype)")
-        if noisy or n_dly:
-            raise ValueError("newton_impl='fused': noise injection and "
-                             "delay/latch channels are not supported "
-                             "in-kernel")
-        if opts.jac_reuse < 1:
-            raise ValueError("newton_impl='fused' requires jac_reuse >= 1")
-        fused_interpret = jax.default_backend() != "tpu"
 
     def parts(x, t, eps=None, dly=None):
         return compiled.residuals(x, ctx_t.at_time(t), params, eps=eps,
@@ -719,14 +569,6 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                          jnp.asarray(0, jnp.int32), nnwt0))
         ok = jnp.logical_and(done, jnp.all(jnp.isfinite(xn)))
         return xn, Sf, Qf, ok, nnwt
-
-    def _factor(J):
-        """Row-equilibrated LU (mirrors linalg.solve's scaling); returns
-        (LU, perm, rowscale)."""
-        r = jnp.max(jnp.abs(J), axis=-1)
-        r = jnp.where(r == 0, jnp.ones_like(r), r)
-        LU, perm = linalg.lu_factor(J / r[:, None])
-        return LU, perm, r
 
     def newton_mod(x_init, t_new, h, a0, Qhist, Sn, beta, c0, xdh,
                    solve_fn, eps=None, dly=None, init_parts=None):
@@ -1132,36 +974,20 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                               if cap_form else jnp.zeros_like(S0p))
             J = damp_J(c0 * C / h_real + G) if cap_form \
                 else damp_J(a0 * C / h_real + beta * G)
-            if fused_plan is not None:
-                # ONE Pallas dispatch for the whole chord loop (model eval +
-                # assembly + backsolve + convergence in VMEM); the frozen
-                # direction comes from the exact-dtype inverse of J, and the
-                # rescue/accept logic below is untouched — the fused path
-                # only swaps the iteration engine
-                s_off_t = fused_plan.s_off(t_new, ctx_t, params)
-                xn, Sn_new, Qn_new, nok, nnwt = fused_plan(
-                    x_pred, J, s_off_t, c0, h_real, xdh, t_new, opts,
-                    params=params, interpret=fused_interpret)
-            elif use_sparse:
+            if use_sparse:
                 fct = sops.factorize(J)
 
                 def chord_solve(b, _fct=fct, _J=J):
                     return sops.solve_factorized(_fct, _J, b)
-            elif opts.dense_lu == "mixed":
+            else:
                 fct = linalg.chord_factor(J)
 
-                def chord_solve(b, _fct=fct, _J=J):
-                    return linalg.chord_backsolve(*_fct, _J, b)
-            else:
-                LUf, perm, rsc = _factor(J)
-
-                def chord_solve(b, _lu=LUf, _p=perm, _r=rsc):
-                    return linalg.lu_solve(_lu, _p, b / _r)
-            if fused_plan is None:
-                xn, Sn_new, Qn_new, nok, nnwt = newton_mod(
-                    x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0,
-                    xdh, chord_solve, eps=eps_k, dly=dly_k,
-                    init_parts=None if mn_cross else init_parts)
+                def chord_solve(b, _fct=fct):
+                    return linalg.chord_solve(_fct, b)
+            xn, Sn_new, Qn_new, nok, nnwt = newton_mod(
+                x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0,
+                xdh, chord_solve, eps=eps_k, dly=dly_k,
+                init_parts=None if mn_cross else init_parts)
             if not mn_cross and opts.chord_fallback:
                 # full-Newton rescue of a failed chord certify: a second
                 # while_loop seeded at the chord iterate (done=nok).  When
@@ -1178,7 +1004,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 # enters the rescue; a one-off chord miss keeps the cheap
                 # reject-and-shrink path.  Under vmap the rescue body runs
                 # for the whole batch when any lane enters, so ungated
-                # engagement cost 5× batched throughput (2026-08-19 bench).
+                # engagement cut batched throughput several-fold.
                 _eligible = c["nfr"] >= opts.rescue_after
                 # Seed hygiene: a chord iterate that diverged — non-finite
                 # (every rescue dx would be non-finite, zeroed, x frozen:
@@ -1489,10 +1315,8 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
             # LTE tolerances sit above the f32 noise floor (atol 1e-6
             # stalls the controller into endless shrinkage); validated on
             # the BSIM-CMG DFF against the f64 fixed-step golden.
-            # jac_reuse=1 (per-step chord Newton) is the measured-best
-            # default on this path (bench.py 2026-08-17: 9.99 → 3.24 s,
-            # goldens identical) and what lets auto_tpu_impl pick the
-            # fused Pallas kernel below.
+            # jac_reuse=1 (per-step chord Newton) keeps the f32 noise out
+            # of the Jacobian refresh decisions.
             opts = TranOptions(newton_reltol=1e-4, newton_abstol=5e-7,
                                res_tol=1e-3, jac_shunt=1e-7, res_rel=3e-5,
                                rtol=1e-2, atol=1e-4, jac_reuse=1)
@@ -1532,18 +1356,6 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
     if ctx is None:
         from cedarsim_tpu.core.compile import default_ctx
         ctx = default_ctx(compiled)
-    # default-path fast-impl resolution (VERDICT r4 #4): the public entry
-    # is AD-free (returns host arrays), so "auto" may resolve to the
-    # measured-best Pallas paths here
-    opts = auto_tpu_impl(compiled, ctx, opts, params)
-    if opts.newton_impl == "fused":
-        # build the fused-chord plan OUTSIDE the jit boundary (concrete ctx
-        # and params — the kernel bakes them as constants) and stash it for
-        # tran_core; the jit cache key carries the plan identity so a ctx
-        # change cannot reuse a trace with stale baked constants
-        from cedarsim_tpu.ops.fused_chord import get_fused_plan
-        compiled._fused_plan_active = get_fused_plan(
-            compiled, ctx.with_mode(Modes.TRAN), params)
     t0, tstop = float(tspan[0]), float(tspan[1])
     if resume is not None:
         t0 = float(np.asarray(resume["t"]))
@@ -1624,15 +1436,13 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
         n_rejected=int(nrej), n_newton=int(nnwt),
         compiled=compiled, ctx=ctx.with_mode(Modes.TRAN), params=params,
         checkpoint={f: np.asarray(v) for f, v in final.items()},
-        store_map=store_map)
+        store_map=store_map, opts=opts)
 
 
 def _get_tran_jit(compiled: CompiledCircuit, opts: TranOptions, nbp: int,
                   resuming: bool = False):
     cache = compiled.__dict__.setdefault("_tran_jit_cache", {})
-    key = (opts, nbp, resuming,
-           id(getattr(compiled, "_fused_plan_active", None))
-           if opts.newton_impl == "fused" else None)
+    key = (opts, nbp, resuming)
     if key not in cache:
         cache[key] = jax.jit(
             lambda params, ctx, x0, xdot0, t0, tstop, bps, h0, m, ist:

@@ -1,11 +1,10 @@
 """Global configuration for cedarsim_tpu.
 
 Circuit simulation needs f64: conductances span ~15 decades (gmin=1e-12 up to
-k-ohm-level conductances) and Newton convergence tolerances are ~1e-6 relative.
-TPUs execute f64 elementwise/matmul via software emulation, which is acceptable
-for the scalar-ish device models; the dense linear solves use our own
-dtype-generic LU (``cedarsim_tpu.ops.linalg``) because XLA:TPU's builtin
-LuDecomposition expander only supports f32/c64.
+k-ohm-level conductances) and Newton convergence tolerances are ~1e-6
+relative.  States, Jacobians and the linear solves
+(``cedarsim_tpu.ops.linalg``, XLA's native f64 LU) run in f64; compact-model
+evaluation may opt into f32 per circuit (``compile_circuit(eval_dtype=...)``).
 
 Set CEDARSIM_TPU_NO_X64=1 to opt out of enabling x64 globally (e.g. when
 embedding into an ML program that must stay f32).
@@ -23,45 +22,14 @@ if not os.environ.get("CEDARSIM_TPU_NO_X64"):
 # (Newton + continuation + adaptive stepping); caching compiled executables
 # across processes addresses the reference's known weak point — compile
 # latency "often exceeding simulation time" (/root/reference/README-CedarSim.md:28).
-def _machine_tag():
-    # XLA:CPU AOT executables embed the *compile* host's CPU feature set and
-    # can SIGILL when loaded on a host missing one (observed across container
-    # migrations: "+prefer-no-scatter is not supported on the host machine").
-    # JAX's cache key does not cover this, so segregate the cache per CPU
-    # fingerprint.  Hash the model name too, not just the flags: LLVM adds
-    # model-specific tuning features (prefer-no-scatter/-gather) that differ
-    # between hosts whose cpuinfo flag sets are identical.
-    import hashlib
-    try:
-        with open("/proc/cpuinfo") as f:
-            parts = {}
-            for line in f:
-                key = line.split(":", 1)[0].strip()
-                if key in ("flags", "model name", "vendor_id", "cpu family",
-                           "model", "stepping") and key not in parts:
-                    val = line.split(":", 1)[1].strip()
-                    if key == "flags":
-                        val = " ".join(sorted(val.split()))
-                    parts[key] = val
-                if len(parts) == 6:
-                    break
-            if parts:
-                sig = "|".join(f"{k}={parts[k]}" for k in sorted(parts))
-                return hashlib.sha256(sig.encode()).hexdigest()[:12]
-    except OSError:
-        pass
-    import platform
-    return platform.machine() or "unknown"
-
-
-_cache_dir = os.environ.get(
-    "CEDARSIM_TPU_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache", "cedarsim_tpu", "xla",
-                 _machine_tag()))
-if _cache_dir and _cache_dir != "0":
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# JAX reads JAX_COMPILATION_CACHE_DIR itself; only when it is unset does the
+# cache go to one fixed directory in the checkout (a path that moves never
+# hits, since the directory is part of what a later process looks up).
+CACHE_DIR = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 #: Default real dtype for simulator state.
 real_dtype = jnp.float64 if jax.config.read("jax_enable_x64") else jnp.float32
@@ -97,10 +65,9 @@ trace_cache = True
 
 #: Emit each cached model-eval subgraph as a nested jit CALL (a pjit
 #: primitive per site sharing one computation) instead of inlining the
-#: replayed jaxpr equations at every site.  Measured on the BSIM4 DFF
-#: transient (CPU, 2026-08-19): trace 14.6 -> 9.2 s, but XLA compile
-#: UNCHANGED (55 s — XLA inlines the calls before optimizing) and the
-#: compiled program ran 1.8x SLOWER (3.1 -> 5.6 s, call overhead in the
-#: hot while_loop).  Off by default; kept as the measured negative result
-#: and for trace-bound experimentation.
+#: replayed jaxpr equations at every site.  On the BSIM4 DFF transient it
+#: shortened tracing, left XLA compile time unchanged (XLA inlines the calls
+#: before optimizing) and made the compiled program slower (call overhead
+#: in the hot while_loop).  Off by default; kept as the measured negative
+#: result and for trace-bound experimentation.
 call_wrap = False

@@ -1,6 +1,6 @@
 """Circuit compiler: graph IR → pure JAX residual / Jacobian functions.
 
-This is the TPU-native replacement for the reference's DAECompiler backend
+This is the replacement for the reference's DAECompiler backend
 (SURVEY.md §2.9): instead of abstract interpretation of compiler IR, the MNA
 structure is derived directly from the circuit graph and baked into static
 gather/scatter index arrays.
@@ -179,11 +179,11 @@ class CompiledCircuit:
         device group becomes a compile-time constant.
 
         ``eval_dtype``: dtype for the *model evaluations* only — state,
-        time, LTE control and the linear solves stay in ``dtype``.  On TPU,
-        ``eval_dtype=jnp.float32`` runs the device physics on the native VPU
-        instead of double-double f64 emulation: ~8x faster XLA compiles and
-        several-fold faster evals, at ~1e-7 relative model accuracy (Newton
-        tolerances should be loosened accordingly)."""
+        time, LTE control and the linear solves stay in ``dtype``.
+        ``eval_dtype=jnp.float32`` evaluates the device physics in f32 at
+        ~1e-7 relative model accuracy (Newton tolerances should be loosened
+        accordingly); whether that pays on a given device is a measurement
+        of that device."""
         self.circuit = circuit
         self.dtype = dtype or config.real_dtype
         self.eval_dtype = eval_dtype or self.dtype
@@ -437,9 +437,9 @@ class CompiledCircuit:
         costs one model evaluation + n_lvar linear-tangent evaluations
         (instead of separate residual and jacfwd walks).
 
-        NOTE: measured SLOWER than the separate residuals()+jacobians()
-        walks inside the Newton loops on both CPU (−17% batched) and TPU
-        (−4%) — XLA optimizes the jacfwd form better — so the solvers keep
+        NOTE: measured slower than the separate residuals()+jacobians()
+        walks inside the Newton loops — XLA optimizes the jacfwd form
+        better — so the solvers keep
         the separate walks; this stays available for future sparse-path
         work where sharing the primal matters more."""
         params = self.params0 if params is None else params

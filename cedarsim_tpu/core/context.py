@@ -71,8 +71,7 @@ class SimSpec:
         # Scalar fields stay host floats: they fold as compile-time constants
         # in traces (device evals short-circuit concrete math on the host),
         # and as jit arguments they become tracers anyway.  Keeping them off
-        # the device also avoids eager TPU evaluation during tracing, where
-        # the f64 emulation has only f32 exponent range.
+        # the device also keeps eager device round trips out of tracing.
         return SimSpec(
             time=float(time),
             temp=float(temp_c) + config.T_ZERO_C,

@@ -1,4 +1,4 @@
-"""Device model protocol — the TPU-native replacement for the reference's
+"""Device model protocol — the replacement for the reference's
 trace-time circuit-element runtime (Net/branch!/kcl! intrinsics,
 /root/reference/src/simulate_ir.jl:28-140).
 

@@ -1,4 +1,4 @@
-"""Built-in SPICE device models, batched TPU-native stamps.
+"""Built-in SPICE device models, batched vectorized stamps.
 
 Behavioral reference: /root/reference/src/simpledevices.jl — SimpleResistor
 (:49-77, value-or-sheet resistance + 4kT/R thermal noise), SimpleCapacitor

@@ -5,7 +5,7 @@ Reference behavior: /root/reference/src/spectre_env.jl —
 ``pwl_at_time`` (:15-69, binary search + linear interp, ends held),
 ``pulse`` (:153-166, periodic via right-semi-open remainder),
 ``spsin`` (:169-176), and breakpoint notification via
-``time_periodic_singularities!`` (:71-77, 144-151).  In the TPU build the
+``time_periodic_singularities!`` (:71-77, 144-151).  In this build the
 breakpoints become a *static sorted array* merged into the transient stepper's
 schedule (SURVEY.md §5 "Long-context": static break lists).
 """

@@ -1437,6 +1437,6 @@ def elaborate(netlist, include_paths=(), params=None, mc_seed=None,
 
 
 def load_spice(text: str, file="<netlist>", **kw) -> Circuit:
-    """Parse + elaborate SPICE netlist text → Circuit (the TPU equivalent of
+    """Parse + elaborate SPICE netlist text → Circuit (the equivalent of
     the reference's ``sp"..."`` string macro, spectre.jl:1754)."""
     return elaborate(P.parse_spice(text, file), **kw)

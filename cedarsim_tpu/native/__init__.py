@@ -1,6 +1,6 @@
 """Native (C++) components, built on demand with the system toolchain.
 
-The compute path is JAX/XLA/Pallas; these are the host-side runtime pieces
+The compute path is JAX/XLA; these are the host-side runtime pieces
 that the reference delegates to native dependencies (SURVEY.md §2.10):
 currently the sparse symbolic-factorization planner (KLU's symbolic half).
 A pure-Python fallback keeps everything working without a compiler.

@@ -4,8 +4,8 @@
 // leans on SuiteSparse through Sundials/LinearSolve, SURVEY.md §2.10): a
 // minimum-degree fill-reducing ordering and an elimination symbolic pass
 // that computes the exact L+U sparsity under that ordering.  The numeric
-// factorization runs on-device (JAX/Pallas) against the *static* structure
-// computed here once per circuit — TPU kernels need static sparsity, so the
+// factorization runs on-device (JAX) against the *static* structure
+// computed here once per circuit — device kernels need static sparsity, so the
 // planning is naturally a compile-time, native-code job.
 //
 // Exported C ABI (ctypes):

@@ -1,19 +1,13 @@
-"""Dense linear algebra that works in f64/c128 on TPU.
+"""Dense linear solves for circuit Jacobians (f64 / c128).
 
-XLA:TPU's builtin LuDecomposition expander only implements f32 and c64
-(verified on hardware: "Only F32 and C64 types are implemented in
-LuDecomposition"), but circuit matrices need f64 — conductances span ~15
-decades.  TPUs *do* emulate f64 elementwise ops, so we provide a pure-JAX LU
-with partial pivoting built only from elementwise ops, gathers, and outer
-products; it compiles for any dtype and vmaps cleanly for batched sweeps.
-
-On CPU (tests) and for f32/c64 on TPU we defer to the native
-``jnp.linalg.solve`` (LAPACK / XLA expander), which is faster.
+Circuit matrices need f64: conductances span ~15 decades.  XLA factors f64
+and c128 natively on every backend this package runs on — LAPACK on the CPU,
+cuSOLVER/cuBLAS (batched LU for small matrices under ``vmap``) on the GPU —
+so every dense solve is ``jnp.linalg.solve`` / ``jax.scipy.linalg.lu_*``.
 
 Replaces the reference's KLU/UMFPACK+LAPACK dependency (SURVEY.md §2.10) for
-the dense path; circuits up to a few hundred unknowns are faster dense+batched
-on the MXU than sparse.  A structurally-sparse path is planned for large
-circuits.
+the dense path; circuits above ``core.compile.SPARSE_AUTO_THRESHOLD`` unknowns
+take the static-pattern sparse LU (``ops/sparse_lu.py``) instead.
 """
 
 from __future__ import annotations
@@ -22,207 +16,28 @@ import jax
 import jax.numpy as jnp
 
 
-def _native_ok(dtype) -> bool:
-    if jax.default_backend() == "cpu":
-        return True
-    return jnp.dtype(dtype) in (jnp.dtype(jnp.float32), jnp.dtype(jnp.complex64))
-
-
-def lu_factor(A):
-    """LU with partial pivoting: returns (LU, perm) where LU packs L (unit
-    diagonal, below) and U (on/above diagonal), and ``perm`` maps factored row
-    order to original rows (P@A = L@U with P[i, perm[i]] = 1)."""
-    n = A.shape[-1]
-    idx = jnp.arange(n)
-    tiny = jnp.asarray(1e-300 if A.real.dtype == jnp.float64 else 1e-30,
-                       A.real.dtype)
-
-    def body(k, carry):
-        LU, perm = carry
-        col = LU[:, k]
-        mag = jnp.where(idx >= k, jnp.abs(col), -jnp.inf)
-        p = jnp.argmax(mag)
-        # swap rows k <-> p
-        rk, rp = LU[k], LU[p]
-        LU = LU.at[k].set(rp).at[p].set(rk)
-        pk, pp = perm[k], perm[p]
-        perm = perm.at[k].set(pp).at[p].set(pk)
-        pivot = LU[k, k]
-        safe = jnp.where(jnp.abs(pivot) < tiny,
-                         jnp.where(jnp.real(pivot) < 0, -tiny, tiny), pivot)
-        mult = jnp.where(idx > k, LU[:, k] / safe, jnp.zeros_like(col))
-        # trailing update on columns > k; store multipliers in column k
-        upd = jnp.outer(mult, LU[k])
-        LU = LU - upd * (idx[None, :] > k)
-        LU = LU.at[:, k].set(jnp.where(idx > k, mult, LU[:, k]))
-        return LU, perm
-
-    return jax.lax.fori_loop(0, n, body, (A, idx))
-
-
-def lu_solve(LU, perm, b):
-    """Solve with factors from :func:`lu_factor` (single RHS, shape [n])."""
-    n = LU.shape[-1]
-    idx = jnp.arange(n)
-    bp = b[perm]
-
-    def fwd(i, y):
-        s = jnp.sum(jnp.where(idx < i, LU[i] * y, jnp.zeros_like(y)))
-        return y.at[i].set(bp[i] - s)
-
-    y = jax.lax.fori_loop(0, n, fwd, jnp.zeros_like(bp))
-
-    def bwd(j, x):
-        i = n - 1 - j
-        s = jnp.sum(jnp.where(idx > i, LU[i] * x, jnp.zeros_like(x)))
-        return x.at[i].set((y[i] - s) / LU[i, i])
-
-    return jax.lax.fori_loop(0, n, bwd, jnp.zeros_like(y))
-
-
 def solve(A, b):
-    """A x = b for one system; dtype-generic, TPU-safe.
-
-    Row-equilibrates before factoring: circuit Jacobians mix kΩ-level
-    conductances with unit-coefficient branch constraints, and scaling keeps
-    partial pivoting honest in emulated f64.
-    """
-    if _native_ok(A.dtype):
-        return jnp.linalg.solve(A, b[..., None])[..., 0]
-    r = jnp.max(jnp.abs(A), axis=-1)
-    r = jnp.where(r == 0, jnp.ones_like(r), r)
-    As = A / r[:, None]
-    bs = b / r
-    LU, perm = lu_factor(As)
-    return lu_solve(LU, perm, bs)
+    """A x = b for one system, or a stack of them over leading axes."""
+    return jnp.linalg.solve(A, b[..., None])[..., 0]
 
 
-def solve_batched(A, b):
-    """Batched solve over leading axes."""
-    if _native_ok(A.dtype):
-        return jnp.linalg.solve(A, b[..., None])[..., 0]
-    f = solve
-    for _ in range(A.ndim - 2):
-        f = jax.vmap(f)
-    return f(A, b)
-
-
-# --------------------------------------------------------------------------
-# Mixed-precision batched dense solve (Pallas sublane kernels + f64
-# iterative refinement).
-#
-# The batched transient path vmaps the whole Newton/chord solver over sweep
-# lanes, so per-lane code sees [n, n] Jacobians and the batch only exists at
-# the vmap level.  ``custom_vmap`` is the seam that lets the BATCHED lowering
-# route to the Pallas sublane LU (ops/pallas_lu.py — batch rides the sublane
-# axis; measured 7.9x over the vmapped pure-JAX f64 LU at the DFF shape,
-# benchmarks/pallas_lu_bench.json) while the unbatched trace keeps today's
-# exact-f64 behavior bit-for-bit.
-#
-# Accuracy contract: factors are f32 GESP (equilibrated, boosted pivots);
-# every solve runs ``_REFINE`` f64 refinement passes against the TRUE
-# Jacobian, recovering ~7 digits/pass for mildly-conditioned equilibrated
-# MNA systems.  The Newton loop's own f64 residual certify remains the
-# correctness gate above this — a weak direction costs iterations, never
-# silent wrong answers.
-#
-# Opt-in (TranOptions.dense_lu = "mixed"): custom_vmap has no AD rules, and
-# sensitivity/pss analyses jvp straight through the integrator.
-# --------------------------------------------------------------------------
-
-_MIXED_INTERPRET = False     # tests: route the pallas path in interpret mode
-
-
-def _mixed_pallas_ok(dtype, n, B):
-    from cedarsim_tpu.ops import pallas_lu
-    if not _MIXED_INTERPRET and jax.default_backend() != "tpu":
-        return False
-    if jnp.dtype(dtype) != jnp.dtype(jnp.float64):
-        return False
-    return pallas_lu.sublane_tiles(B, n) is not None
-
-
-_REFINE = 2
-
-
-def _equilibrate(J):
+def _rowscale(J):
     r = jnp.max(jnp.abs(J), axis=-1)
-    r = jnp.where(r == 0, jnp.ones_like(r), r)
-    return r
+    return jnp.where(r == 0, jnp.ones_like(r), r)
 
 
-@jax.custom_batching.custom_vmap
 def chord_factor(J):
-    """Row-equilibrated LU for the chord-Newton factor-once/solve-many
-    split: returns (LU, perm, rowscale) consumed by :func:`chord_backsolve`.
-    Unbatched (and under every transform other than vmap): the exact-f64
-    pure-JAX LU.  Under vmap on TPU: f32 Pallas sublane GESP factors
-    (perm = identity), refined at solve time."""
-    r = _equilibrate(J)
-    LU, perm = lu_factor(J / r[:, None])
-    return LU, perm, r
+    """Row-equilibrated LU for the chord-Newton factor-once/solve-many split.
+
+    Circuit Jacobians mix kΩ-level conductances with unit-coefficient branch
+    constraints; scaling each row by its largest entry keeps partial
+    pivoting honest.  Returns the factors consumed by :func:`chord_solve`."""
+    r = _rowscale(J)
+    lu, piv = jax.scipy.linalg.lu_factor(J / r[..., None])
+    return lu, piv, r
 
 
-@chord_factor.def_vmap
-def _chord_factor_vmap(axis_size, in_batched, J):
-    (jb,) = in_batched
-    if not jb:
-        J = jnp.broadcast_to(J, (axis_size,) + J.shape)
-    B, n, _ = J.shape
-    r = _equilibrate(J)
-    Js = J / r[..., None]
-    if _mixed_pallas_ok(J.dtype, n, B):
-        from cedarsim_tpu.ops import pallas_lu
-        LU = pallas_lu.lu_factor_batched_sublane_f32(
-            Js.astype(jnp.float32),
-            interpret=_MIXED_INTERPRET).astype(J.dtype)
-        perm = jnp.broadcast_to(jnp.arange(n), (B, n))
-    else:
-        LU, perm = jax.vmap(lu_factor)(Js)
-    return (LU, perm, r), (True, True, True)
-
-
-@jax.custom_batching.custom_vmap
-def chord_backsolve(LU, perm, r, J, b):
-    """Solve with factors from :func:`chord_factor`.  ``J`` is the
-    unfactored Jacobian — the mixed-precision batched path refines against
-    it in f64; the exact-f64 unbatched path ignores it."""
-    del J
-    return lu_solve(LU, perm, b / r)
-
-
-@chord_backsolve.def_vmap
-def _chord_backsolve_vmap(axis_size, in_batched, LU, perm, r, J, b):
-    args = [LU, perm, r, J, b]
-    for i, (a, ab) in enumerate(zip(args, in_batched)):
-        if not ab:
-            args[i] = jnp.broadcast_to(a, (axis_size,) + a.shape)
-    LU, perm, r, J, b = args
-    B, n = b.shape
-    if _mixed_pallas_ok(J.dtype, n, B):
-        from cedarsim_tpu.ops import pallas_lu
-        LU32 = LU.astype(jnp.float32)
-
-        def subst(v):
-            return pallas_lu.lu_subst_batched_sublane_f32(
-                LU32, (v / r).astype(jnp.float32),
-                interpret=_MIXED_INTERPRET).astype(J.dtype)
-
-        x = subst(b)
-        for _ in range(_REFINE):
-            # f64 matvec as elementwise mul + reduce: TPU f64 is emulated
-            # for elementwise ops; a true f64 dot is not available
-            resid = b - jnp.sum(J * x[:, None, :], axis=-1)
-            x = x + subst(resid)
-        out = x
-    else:
-        out = jax.vmap(lambda lu, p, rr, bb: lu_solve(lu, p, bb / rr))(
-            LU, perm, r, b)
-    return out, True
-
-
-def chord_solve_once(J, b):
-    """One-shot factor+solve through the chord pair — the full-Newton
-    ``lin_solve`` shape for the mixed path."""
-    LU, perm, r = chord_factor(J)
-    return chord_backsolve(LU, perm, r, J, b)
+def chord_solve(factors, b):
+    """Solve J x = b with the factors from :func:`chord_factor`."""
+    lu, piv, r = factors
+    return jax.scipy.linalg.lu_solve((lu, piv), b / r)

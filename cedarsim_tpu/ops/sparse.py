@@ -2,7 +2,7 @@
 
 The dense batched LU (ops/linalg.py) is the right call below a few hundred
 unknowns — it runs on the MXU and vmaps perfectly.  Beyond that, a sparse
-factorization with a *precomputed symbolic structure* wins; TPU kernels need
+factorization with a *precomputed symbolic structure* wins; device kernels need
 static sparsity, so the planning happens once per circuit at compile time in
 native code (cedarsim_tpu/native/symbolic.cpp — minimum-degree ordering +
 elimination symbolic pass), with a pure-Python fallback.
@@ -74,13 +74,13 @@ def nd_order(n, rows, cols, leaf=32):
 
     Motivation is LATENCY, not fill: the leveled on-device LU executes one
     batched gather/scatter dispatch per elimination-tree level, so the
-    sequential depth — not the flop count — prices a TPU solve.  Min-degree
+    sequential depth — not the flop count — prices a device solve.  Min-degree
     on a chain-shaped circuit yields a path elimination tree (n_levels ~ n:
     380 levels at 1992 unknowns, measured), while dissection cuts it to
     O(log n) levels of independent blocks.  This is the KLU/AMD role
     (/root/reference/Project.toml LinearSolve) re-decided for the hardware:
     AMD minimizes fill for a sequential CPU sweep; ND minimizes the
-    critical path the TPU actually waits on."""
+    critical path the device actually waits on."""
     indptr, indices = _to_csr(n, rows, cols)
     # symmetrize once (BFS needs undirected adjacency)
     adj = [set() for _ in range(n)]

@@ -1,7 +1,7 @@
-"""Static-pattern sparse LU for TPU — the KLU replacement for large circuits.
+"""Static-pattern sparse LU on the device — the KLU replacement for large circuits.
 
 The reference Newton-solves through KLU (/root/reference/Project.toml:31,
-SURVEY.md §2.10).  A TPU kernel needs static shapes and a static schedule, so
+SURVEY.md §2.10).  A device kernel needs static shapes and a static schedule, so
 the factorization is split:
 
 * **Plan (host, once per circuit)**: structural pivoting (bipartite matching
@@ -15,8 +15,7 @@ the factorization is split:
 * **Numeric (device, per solve)**: ``factor(plan, vals)`` runs the level
   schedule over a flat value vector in the filled pattern; ``solve`` does
   leveled forward/backward substitution.  Everything is index-gather based,
-  so it jits, vmaps over sweep lanes, and runs in any dtype (f64 double-double
-  on TPU included).
+  so it jits, vmaps over sweep lanes, and runs in any dtype.
 
 No numerical pivoting — MNA matrices get a zero-free diagonal from the
 structural matching plus gmin shunts; optional iterative refinement recovers
@@ -70,7 +69,7 @@ class SparsePlan:
     #: is a contiguous band of levels padded to the band's max width, so
     #: the compiled program is O(#runs) instead of O(#levels) — the
     #: unrolled sweep made XLA compile time scale with circuit depth
-    #: (measured: 452-unknown chain 67.9k HLO lines / 112 s XLA unrolled).
+    #: (measured: 452-unknown chain 67.9k HLO lines unrolled).
     fact_runs: tuple = ()      # (DD, DP, UD, UL, UU) per run, [L, w*] each
     fwd_runs: tuple = ()       # (ROWS, COLS, POS) per run
     bwd_runs: tuple = ()       # (ROWS, COLS, POS, DIAG_I, DIAG_P) per run
@@ -233,8 +232,8 @@ def build_plan(n, rows, cols, perm=None, weights=None,
     ``order``: fill-reducing ordering — "md" (minimum degree: best fill,
     long elimination path; the CPU/KLU-style choice), "nd" (nested
     dissection: O(log n)-depth elimination tree so the leveled on-device
-    sweeps dispatch far fewer sequential steps; the TPU choice), or "auto"
-    (nd when the default JAX backend is a TPU, else md)."""
+    sweeps dispatch far fewer sequential steps), or "auto" (md, unless the
+    CEDARSIM_SPARSE_ORDER environment variable names "md" or "nd")."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     key0 = rows * n + cols
@@ -273,13 +272,10 @@ def build_plan(n, rows, cols, perm=None, weights=None,
             if env in ("md", "nd"):
                 order = env
             else:
-                # md everywhere: nd's O(log n) level count does NOT pay on
-                # the real chip — the packed fori_loop already amortizes
-                # level dispatch on-device, so per-solve cost follows FILL,
-                # and nd's ~1.26x fill premium loses (measured 2026-08-19,
-                # 1992 unknowns, TPU v5e: md 35.9 ms/solve at 380 levels vs
-                # nd 52.7 ms at 46 levels; benchmarks/compile_latency.md).
-                # nd stays available for genuinely dispatch-bound setups.
+                # md everywhere: the packed fori_loop amortizes level
+                # dispatch on-device, so per-solve cost follows FILL, and
+                # nd's fill premium cancels its shorter level count.  nd
+                # stays available for genuinely dispatch-bound setups.
                 order = "md"
         fn = nd_order if order == "nd" else md_order
         perm = fn(n, sym_r[fi].astype(np.int32),

@@ -21,7 +21,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from cedarsim_tpu.core.compile import CompiledCircuit
 from cedarsim_tpu.core.context import SimSpec, Modes
 from cedarsim_tpu.analysis.dc import dc_core, NewtonOptions, DCResult
-from cedarsim_tpu.analysis.sweeps import batch_params, sweepify
+from cedarsim_tpu.analysis.sweeps import batch_params
 
 
 def make_mesh(n_devices=None, axis="batch") -> Mesh:
@@ -139,25 +139,13 @@ def tran_sweep_sharded(compiled: CompiledCircuit, sweep, tspan,
     t0, tstop = float(tspan[0]), float(tspan[1])
     span = tstop - t0
 
-    dyn_leaves = None
     if sweep is None:
         if params is None:
             raise ValueError("sweep=None needs a prebuilt batched params "
                              "tree via params=")
         bp = params
     else:
-        from cedarsim_tpu.analysis.sweeps import sweepify
         compiled, bp, _ = batch_params(compiled, sweep, params)
-        dyn_leaves = [n for n in sweepify(sweep).names
-                      if n.lower() != "temp"]
-    # harness entry, no outer AD: "auto" impls may resolve to the
-    # measured-best batched Pallas paths — but only when every swept leaf
-    # is provably live in the fused kernel (dyn_leaf_safe); a raw
-    # ``params=`` batch of unknown shape stays on the XLA chord path
-    from cedarsim_tpu.analysis.tran import auto_tpu_impl
-    opts = auto_tpu_impl(compiled, ctx, opts, params=None, batched=True,
-                         dyn_leaves=dyn_leaves,
-                         batch_size=jax.tree.leaves(bp)[0].shape[0])
     bp, n = pad_batch(bp, mesh.size)
     npad = jax.tree.leaves(bp)[0].shape[0]
 

@@ -96,48 +96,3 @@ def store_op(key, x):
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, x=x)
     os.replace(tmp, path)
-
-
-def plan_key(compiled, params, ctx) -> str | None:
-    """Content hash for the fused-chord plan's numeric core (the eager
-    linearity probes + linear-subsystem jacobians are ~32 s of every
-    process's leg setup, measured on chip 2026-08-21)."""
-    k = op_key(compiled, params, ctx, "fusedplan")
-    if k is None:
-        return None
-    # scale enters the baked matrices through device geometry
-    try:
-        h = hashlib.sha256((k + f"/{float(ctx.scale)}").encode())
-        return h.hexdigest()
-    except TypeError:
-        return None
-
-
-def load_plan_core(key):
-    """(lin_keys, nl_keys, G_lin, C_lin, q_off) or None."""
-    d = cache_dir()
-    if d is None or key is None:
-        return None
-    path = os.path.join(d, f"plan_{key}.npz")
-    if not os.path.exists(path):
-        return None
-    try:
-        with np.load(path, allow_pickle=False) as z:
-            lin = [s for s in str(z["lin_keys"]).split("\x00") if s]
-            nl = [s for s in str(z["nl_keys"]).split("\x00") if s]
-            return lin, nl, z["G_lin"], z["C_lin"], z["q_off"]
-    except Exception:
-        return None
-
-
-def store_plan_core(key, lin_keys, nl_keys, G_lin, C_lin, q_off):
-    d = cache_dir()
-    if d is None or key is None:
-        return
-    path = os.path.join(d, f"plan_{key}.npz")
-    tmp = f"{path}.{os.getpid()}.tmp.npz"
-    np.savez(tmp, lin_keys="\x00".join(lin_keys),
-             nl_keys="\x00".join(nl_keys),
-             G_lin=np.asarray(G_lin), C_lin=np.asarray(C_lin),
-             q_off=np.asarray(q_off))
-    os.replace(tmp, path)

@@ -1,5 +1,6 @@
 """Interactive parameter exploration — the reference's ``explore()`` Makie
-slider UI (/root/reference/ext/CedarSimMakieExt.jl), redesigned TPU-first.
+slider UI (reference ext/CedarSimMakieExt.jl), redesigned as one batched
+program.
 
 The reference re-runs the simulation on every slider move (one CPU solve per
 interaction).  Here the *entire slider grid* is simulated up front as ONE

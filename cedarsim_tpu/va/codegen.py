@@ -231,9 +231,8 @@ def _concrete(*vs):
     so parameter-only computation folds at trace time on the HOST in real
     f64 (the const-prop the reference gets from the Julia compiler,
     /root/reference/test/compiler_sanity.jl).  Host folding matters beyond
-    speed: eager device math during tracing would run through the TPU's
-    range-limited f64 emulation (f32 exponent range), overflowing e.g.
-    BSIM-CMG's NBODY*NSD ~ 1e50."""
+    speed: it keeps eager device round trips out of tracing, and the folded
+    values are exact host f64 whatever the model's eval dtype."""
     from jax.core import Tracer
     return not any(isinstance(v, Tracer) for v in vs)
 
@@ -1478,9 +1477,9 @@ class _State:
         if op == "/":
             # Balanced quotient evaluation: a*b/(c*d) evaluates as
             # (a/c)*(b/d) instead of (a*b)/(c*d), so intermediate products
-            # stay within the f32 exponent range of the TPU's double-double
-            # f64 emulation.  BSIM-CMG's vbi = Vtm*ln(NBODY*NSD/(ni*ni))
-            # reaches 1e50 in source order; balanced it peaks at ~1e17.
+            # stay within the f32 exponent range when a model evaluates in
+            # f32.  BSIM-CMG's vbi = Vtm*ln(NBODY*NSD/(ni*ni)) reaches 1e50
+            # in source order; balanced it peaks at ~1e17.
             # Reassociation only perturbs rounding at the ulp level.
             num, den = [], []
             _flatten_muldiv(ea, num, den)
@@ -1998,7 +1997,7 @@ class _State:
 def load_va(text: str, file="<va>", include_paths=(), defines=(),
             **make_kwargs):
     """Parse + compile VA source → dict module-name → DeviceModel subclass
-    (the TPU equivalent of ``load_VA_model``,
+    (the equivalent of ``load_VA_model``,
     /root/reference/src/ModelLoader.jl:20).  ``defines`` predefines empty
     macros (compile-time model variants); extra keyword args pass
     through to ``make_device`` (delay_mode=, transition_mode=, ...)."""

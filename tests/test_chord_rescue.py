@@ -104,8 +104,8 @@ def test_rescue_gate_semantics():
     threshold must behave exactly like chord_fallback=False on a circuit
     whose chord misses are one-offs, and 0 must engage immediately.  The
     gate exists because an ungated rescue under vmap runs its body for
-    the whole batch on any lane's miss (measured 5x batched-throughput
-    cost on the DFF bench, 2026-08-19)."""
+    the whole batch on any lane's miss, a several-fold batched-throughput
+    cost on the DFF bench."""
     comp = _rectifier()
     off = tran(comp, TSPAN, opts=dataclasses.replace(
         BASE, chord_fallback=False))

@@ -82,3 +82,31 @@ def test_tran_sweep_sharded_respects_new_tspan():
     # the padded time buffers end at each call's own tstop
     assert abs(np.asarray(r1.ts).max() - 1e-6) < 1e-12
     assert abs(np.asarray(r2.ts).max() - 5e-6) < 1e-12
+
+
+def test_tran_sweep_sharded_8_devices_equals_one_device():
+    """The CPU twin of the 4-card run: the same lanes on the 8-device mesh
+    and on a 1-device mesh agree lane for lane."""
+    ckt = Circuit()
+    vin, vout = ckt.net("vin"), ckt.net("vout")
+    ckt.add(VSourcePULSE, "V1", (vin, ckt.gnd),
+            dict(v1=0.0, v2=2.0, td=1e-6, tr=1e-9, tf=1e-9, pw=2e-6,
+                 per=20e-6))
+    ckt.add(Resistor, "R1", (vin, vout), dict(r=1000.0))
+    ckt.add(Capacitor, "C1", (vout, ckt.gnd), dict(c=1e-9))
+    comp = compile_circuit(ckt, dynamic_params=["r"])
+    rs = np.linspace(500.0, 2200.0, 12)       # padded to 16 on 8 devices
+    sw = Sweep("R1.r", rs)
+    r8 = tran_sweep_sharded(comp, sw, (0.0, 5e-6), make_mesh(8))
+    r1 = tran_sweep_sharded(comp, sw, (0.0, 5e-6), make_mesh(1))
+    assert np.asarray(r8.finished).all() and np.asarray(r1.finished).all()
+    np.testing.assert_array_equal(np.asarray(r8.n_accepted),
+                                  np.asarray(r1.n_accepted))
+    iv = comp.node_names.index("vout")
+    t = np.linspace(0.0, 5e-6, 51)
+    for lane in range(len(rs)):
+        v8 = np.interp(t, np.asarray(r8.ts[lane]),
+                       np.asarray(r8.xs[lane, :, iv]))
+        v1 = np.interp(t, np.asarray(r1.ts[lane]),
+                       np.asarray(r1.xs[lane, :, iv]))
+        assert np.max(np.abs(v8 - v1)) <= 1e-9, lane

@@ -160,7 +160,7 @@ def test_plan_reports_levels():
 def test_nd_order_cuts_level_depth():
     """Nested dissection must produce a valid permutation and an
     O(log n)-depth elimination tree on a path graph (the chain-circuit
-    shape where min-degree yields a path: n_levels ~ n).  TPU solves pay
+    shape where min-degree yields a path: n_levels ~ n).  Device solves pay
     one dispatch per level, so depth is the latency metric."""
     import numpy as np
     from cedarsim_tpu.ops.sparse import nd_order

@@ -161,7 +161,7 @@ def test_tline_multiple_echo_staircase():
 
 
 def test_tline_mixed_precision_eval():
-    """The TPU design point (f32 model evals, f64 states/solves, cap-form
+    """The mixed-precision mode (f32 model evals, f64 states/solves, cap-form
     BDF2, chord Newton) through the delay channel: matched line stays a
     pure delay.  Catches dtype bugs in the aux-input cast path."""
     import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Corrector formulations: charge-form vs capacitance-form equivalence.
 
-The cap form exists because TPU f32 transcendentals carry ~1e-6 relative
-error (measured: pow 4.1e-6 on TPU vs 6.7e-8 on CPU), and the charge-form
+The cap form exists because f32 transcendentals carry ~1e-6 relative
+error, and the charge-form
 corrector divides that noise by h — Newton then floors at ~1e-5 A residuals
 for small steps and the run aborts (observed on the BSIM4 DFF at t=1.3 ps).
 The cap form S(x) + C(x)·ẋ(x) keeps eval noise relative.  Both forms must
