@@ -18,6 +18,11 @@ import jax.numpy as jnp
 if not os.environ.get("CEDARSIM_TPU_NO_X64"):
     jax.config.update("jax_enable_x64", True)
 
+#: The checkout the package runs from.  Every cache the package keeps for
+#: itself lives in it: compiled XLA programs (below), DC warm starts
+#: (utils/artifacts.py) and the native planner library (native/).
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # Persistent XLA compilation cache: circuit solvers are large traced programs
 # (Newton + continuation + adaptive stepping); caching compiled executables
 # across processes addresses the reference's known weak point — compile
@@ -26,7 +31,10 @@ if not os.environ.get("CEDARSIM_TPU_NO_X64"):
 # cache go to one fixed directory in the checkout (a path that moves never
 # hits, since the directory is part of what a later process looks up).
 CACHE_DIR = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+    CHECKOUT, ".jax_cache")
+#: DC warm starts and the built native library, unless the environment
+#: variables those modules read say otherwise.
+LOCAL_CACHE = os.path.join(CHECKOUT, ".cedarsim_cache")
 if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
     jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

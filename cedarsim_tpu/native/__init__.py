@@ -11,13 +11,17 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_CACHE = os.environ.get(
-    "CEDARSIM_TPU_NATIVE_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache", "cedarsim_tpu",
-                 "native"))
+
+
+def _cache_dir():
+    """Where the built library goes: CEDARSIM_TPU_NATIVE_CACHE, else
+    ``.cedarsim_cache/native`` in the checkout."""
+    from cedarsim_tpu.config import LOCAL_CACHE
+    return os.environ.get("CEDARSIM_TPU_NATIVE_CACHE",
+                          os.path.join(LOCAL_CACHE, "native"))
+
 
 _lib = None
 _tried = False
@@ -25,11 +29,12 @@ _tried = False
 
 def _build():
     src = os.path.join(_HERE, "symbolic.cpp")
-    os.makedirs(_CACHE, exist_ok=True)
-    out = os.path.join(_CACHE, "libcsim_symbolic.so")
+    cache = _cache_dir()
+    os.makedirs(cache, exist_ok=True)
+    out = os.path.join(cache, "libcsim_symbolic.so")
     if (not os.path.exists(out)
             or os.path.getmtime(out) < os.path.getmtime(src)):
-        tmp = out + ".tmp"
+        tmp = f"{out}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp],
             check=True, capture_output=True)

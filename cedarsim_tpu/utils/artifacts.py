@@ -11,7 +11,8 @@ cached point).  Warm starts are hints, never answers: the Newton solve still
 verifies convergence, so a stale or corrupt artifact costs one extra rung,
 not correctness.
 
-Disable with CEDARSIM_TPU_ARTIFACTS=0; relocate by setting it to a path.
+Stored in ``.cedarsim_cache/artifacts`` in the checkout.  Disable with
+CEDARSIM_TPU_ARTIFACTS=0; relocate by setting it to a path.
 """
 
 from __future__ import annotations
@@ -24,10 +25,9 @@ import jax
 
 
 def cache_dir():
-    d = os.environ.get(
-        "CEDARSIM_TPU_ARTIFACTS",
-        os.path.join(os.path.expanduser("~"), ".cache", "cedarsim_tpu",
-                     "artifacts"))
+    from cedarsim_tpu.config import LOCAL_CACHE
+    d = os.environ.get("CEDARSIM_TPU_ARTIFACTS",
+                       os.path.join(LOCAL_CACHE, "artifacts"))
     if not d or d == "0":
         return None
     os.makedirs(d, exist_ok=True)

@@ -32,6 +32,7 @@ SPARSE_TOL = 1e-6          # V, sparse vs dense LU on one transient
 RESID_TOL = 1e-10          # normwise backward error of the f64 solves
 FOUR_CARD_TOL = 1e-6       # V, 4-card mesh vs one card, lane for lane
 W_SCATTER = 0.01           # +-1 % W, middle lane pinned to nominal
+CHAIN_DC = dict(max_step=1.0, gmin_steps=14)   # damped chain DC recipe
 
 
 def emit(rec):
@@ -253,10 +254,25 @@ def phase_batched(nb=128):
     return rec, comp, np.asarray(res.xs[:, -1, :])
 
 
+def rail_error(comp, x, n_cells, vdd=5.0):
+    """Largest distance of any cell output d1..dN from the nearer rail."""
+    d = np.asarray([x[comp.node_names.index(f"d{k}")]
+                    for k in range(1, n_cells + 1)])
+    return float(np.max(np.minimum(np.abs(d), np.abs(d - vdd))))
+
+
 def phase_sparse(n_cells=40, tstop=2e-8, sparse="auto"):
     """The BSIM4 shift register above the sparse threshold: the sparse LU
-    path against the same circuit on the dense path, both in f64."""
-    from cedarsim_tpu import tran, TranOptions
+    path against the same circuit on the dense path, both in f64.
+
+    The chain's latches make its operating point bistable and, under the
+    default 5 V Newton step, the gmin ladder's convergence hangs on the
+    rounding of the first steps.  So the operating point is solved once, on
+    the sparse path, with the damped recipe the chain's own tests use
+    (1 V steps, 14 gmin rungs), gated on every cell output sitting at a
+    rail, and both transients start from it."""
+    from cedarsim_tpu import solve_dc, tran, TranOptions
+    from cedarsim_tpu.analysis.dc import NewtonOptions
     from cedarsim_tpu.core.compile import default_ctx, use_sparse_solver
     sys.path.insert(0, DFF_DIR)
     from chain import build
@@ -264,13 +280,21 @@ def phase_sparse(n_cells=40, tstop=2e-8, sparse="auto"):
     de = build(n_cells, models="bsim4", sparse=False)
     check(use_sparse_solver(sp) and not use_sparse_solver(de),
           f"{n_cells}-cell chain: expected the sparse path (n_x={sp.n_x})")
+    ctx = default_ctx(sp)
+    dc_opts = NewtonOptions(**CHAIN_DC)
+    op, dc_c, dc_r = timed_twice(lambda: solve_dc(
+        sp, ctx=ctx, mode="tranop", opts=dc_opts, artifact_cache=False))
+    rail = rail_error(sp, np.asarray(op.x), n_cells)
+    check(bool(op.converged) and rail <= GOLDEN_TOL,
+          f"chain operating point: converged={bool(op.converged)} "
+          f"iters={int(op.iters)} rail_err={rail}")
     opts = TranOptions(max_steps=4096)
     sols = {}
     times = {}
     for name, comp in (("sparse", sp), ("dense", de)):
         sol, c_s, r_s = timed_twice(
-            lambda comp=comp: tran(comp, (0.0, tstop), ctx=default_ctx(comp),
-                                   opts=opts))
+            lambda comp=comp: tran(comp, (0.0, tstop), ctx=ctx, opts=opts,
+                                   x0=op.x))
         check(sol.converged, f"chain {name} transient did not converge")
         sols[name], times[name] = sol, (c_s, r_s)
     t = np.linspace(0.0, tstop, 201)
@@ -279,6 +303,8 @@ def phase_sparse(n_cells=40, tstop=2e-8, sparse="auto"):
     dv = float(np.max(np.abs(vs - vd)))
     rec = dict(phase="sparse_chain", cells=n_cells, n_x=sp.n_x,
                tstop=tstop, max_abs_dv=dv, tol=SPARSE_TOL,
+               dc_iters=int(op.iters), dc_rail_err=rail,
+               compile_s_dc=dc_c, run_s_dc=dc_r,
                steps_sparse=int(sols["sparse"].n_accepted),
                steps_dense=int(sols["dense"].n_accepted),
                compile_s_sparse=times["sparse"][0],

@@ -62,6 +62,15 @@ def test_golden_gate_rejects_nominal_lane_flipped_at_race_edge():
     assert ok and race == pytest.approx(6 / 8)
 
 
+def test_rail_error_reads_each_cell_output():
+    class Chain:
+        node_names = ["vdd", "d0", "d1", "d2", "d3", "d4"]
+    x = np.array([5.0, 2.5, 5.0 - 1e-3, 2e-3, 4.9, 2.5])
+    # d0 (the driven input) and d4 (past the last cell asked for) are not
+    # cell outputs of a 3-cell chain
+    assert chip_smoke.rail_error(Chain, x, 3) == pytest.approx(0.1)
+
+
 def test_result_line_is_exactly_the_contract():
     dev = dict(platform="gpu", kind="NVIDIA H100 80GB HBM3", count=1)
     line = chip_smoke.result_line(dict(dev, extra="dropped"))

@@ -1,7 +1,9 @@
-"""Where the persistent XLA compile cache goes: JAX_COMPILATION_CACHE_DIR
-when it is set, otherwise one fixed directory in the checkout.  Each case
-imports the package in a fresh process, since the choice is made at
-import."""
+"""Where the package's caches go.  The persistent XLA compile cache:
+JAX_COMPILATION_CACHE_DIR when it is set, otherwise one fixed directory in
+the checkout; those cases import the package in a fresh process, since the
+choice is made at import.  DC warm starts and the native planner library:
+their own environment variable, otherwise ``.cedarsim_cache/`` in the
+checkout."""
 
 import json
 import os
@@ -35,3 +37,21 @@ def test_default_cache_dir_is_fixed_in_checkout():
     assert _probe() == [want, want]
     # the same path from any working directory and on every import
     assert _probe() == [want, want]
+
+
+def test_dc_warm_starts_default_to_the_checkout(monkeypatch, tmp_path):
+    from cedarsim_tpu.utils import artifacts
+    monkeypatch.delenv("CEDARSIM_TPU_ARTIFACTS", raising=False)
+    assert artifacts.cache_dir() == os.path.join(REPO, ".cedarsim_cache",
+                                                 "artifacts")
+    monkeypatch.setenv("CEDARSIM_TPU_ARTIFACTS", str(tmp_path))
+    assert artifacts.cache_dir() == str(tmp_path)
+
+
+def test_native_library_defaults_to_the_checkout(monkeypatch, tmp_path):
+    from cedarsim_tpu import native
+    monkeypatch.delenv("CEDARSIM_TPU_NATIVE_CACHE", raising=False)
+    assert native._cache_dir() == os.path.join(REPO, ".cedarsim_cache",
+                                               "native")
+    monkeypatch.setenv("CEDARSIM_TPU_NATIVE_CACHE", str(tmp_path))
+    assert native._cache_dir() == str(tmp_path)
